@@ -3,11 +3,15 @@
 
     python3 chip_smoke.py [--json PATH] [--profile]
 
-Builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version on the card, drives the
-port's main path (``repro_torch.core.engine.stable_sweep``) at
-n = 1,000,000 and 10,000,000, checks its rows, and pins its LDT against
-a float64 numpy oracle.  Each phase prints one line; the line before the
+Builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
+(one ``nvcc`` per source, all started together), holds each against its
+plain PyTorch version on the card, and drives the port's two paths: the
+stable sweep (``repro_torch.core.engine.stable_sweep``) at
+n = 1,000,000 and 10,000,000, whose rows it checks and whose LDT it pins
+against a float64 numpy oracle; and the attention and recurrence ops
+(``repro_torch.kernels.ops``) at the full widths of qwen3-0.6b,
+recurrentgemma-9b and rwkv6-1.6b, each held against its plain version
+and timed beside its bound and, for attention, a PyTorch library call.  Each phase prints one line; the line before the
 last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  ``--json`` also writes every number
 of the run to PATH; ``--profile`` also traces one warm ``stable_sweep``
@@ -35,7 +39,50 @@ N_PIN, PIN_SEEDS, PIN_TOL = 50_000, tuple(range(16)), 0.12
 # H100 SXM data sheet: HBM rate, and the f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12            # dense bf16 tensor-core rate
 FRAME_B = 122.0                    # Snow DATA frame at a 64 B payload
+
+# The ops path at the configs' full widths (src/repro/configs/*.py and
+# the registry's SHAPES): (kernel, label, shape).  Cuts of batch only:
+# 32 -> 1 for flash attention (a simple kernel does about 4.4e12
+# operations per call) and 32 -> 8 for the two scans (the plain
+# versions' float32 copies must fit beside the inputs).
+ML_CASES = (
+    ("flash_attention", "qwen3-0.6b prefill_32k",
+     dict(b=1, h=16, hkv=8, s=32768, hd=128, window=None)),
+    ("flash_attention", "recurrentgemma-9b local attention prefill_32k",
+     dict(b=1, h=16, hkv=1, s=32768, hd=256, window=2048)),
+    ("decode_attention", "qwen3-0.6b decode_32k",
+     dict(b=128, h=16, hkv=8, s=32768, hd=128, length=32000, window=None)),
+    ("decode_attention", "recurrentgemma-9b ring cache decode_32k",
+     dict(b=128, h=16, hkv=1, s=2048, hd=256, length=2048, window=None)),
+    ("rglru_scan", "recurrentgemma-9b prefill_32k",
+     dict(b=8, t=32768, w=4096)),
+    ("wkv6", "rwkv6-1.6b prefill_32k", dict(b=8, t=32768, h=32, hd=64)),
+)
+# float32 at cut lengths (widths kept), where only the order of the
+# float32 sums differs between kernel and plain version
+ML_F32_CASES = (
+    ("flash_attention", dict(b=1, h=16, hkv=8, s=2048, hd=128, window=None)),
+    ("flash_attention", dict(b=1, h=16, hkv=1, s=4096, hd=256, window=2048)),
+    ("decode_attention",
+     dict(b=8, h=16, hkv=8, s=32768, hd=128, length=32000, window=None)),
+    ("decode_attention",
+     dict(b=8, h=16, hkv=1, s=2048, hd=256, length=2048, window=None)),
+    ("rglru_scan", dict(b=2, t=4096, w=4096)),
+    ("wkv6", dict(b=1, t=2048, h=32, hd=64)),
+)
+ML_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+ML_SOURCES = {       # kernel: (source in the port, Pallas kernel it replaces)
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:82"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:76"),
+    "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                   "src/repro/kernels/rglru_scan.py:62"),
+    "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
+             "src/repro/kernels/wkv6.py:77"),
+}
 
 
 def fail(msg: str) -> None:
@@ -43,9 +90,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn`` on the card, from CUDA events."""
-    fn()
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean milliseconds of ``fn`` on the card, from CUDA events, after
+    one warm-up call unless ``warm`` is false (the caller warmed it)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -93,11 +142,19 @@ def phase_card_and_build() -> str:
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t = time.perf_counter()
-    log = _build.build("tree_sweep")
+    logs = _build.build_all()
     secs = time.perf_counter() - t
-    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-    print(f"build: {secs:.3f} s for tree_sweep "
-          f"(ptxas: {' | '.join(regs) or 'cached'})", flush=True)
+    parts = []
+    for kernel, log in logs.items():
+        regs = [int(ln.split("Used ")[1].split()[0])
+                for ln in log.splitlines() if "registers" in ln]
+        spills = sum(int(ln.split("bytes spill stores")[0].split()[-1])
+                     for ln in log.splitlines() if "spill stores" in ln)
+        parts.append(f"{kernel} {len(regs)} entries, at most "
+                     f"{max(regs, default=0)} registers, {spills} B spilled"
+                     if log else f"{kernel} cached")
+    print(f"build: {secs:.3f} s for {len(logs)} kernels in parallel "
+          f"(ptxas: {'; '.join(parts)})", flush=True)
     return smi
 
 
@@ -188,6 +245,243 @@ def phase_kernel_vs_plain(dev) -> tuple:
                       f"({v['bytes']} B / 3.35 TB/s)"
                       for k, v in timings.items()), flush=True)
     return err, timings
+
+
+def ml_inputs(kernel: str, p: dict, dtype, dev, seed: int) -> dict:
+    """Seeded inputs of one op, made on the card (the tests' value
+    ranges: unit normals, RG-LRU gates in (0.01, 0.99), WKV log-decays
+    in (-inf, 0])."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def rn(*shape, scale=1.0, dt=dtype):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=dt).mul_(scale)
+
+    if kernel == "flash_attention":
+        return {"q": rn(p["b"], p["h"], p["s"], p["hd"]),
+                "k": rn(p["b"], p["hkv"], p["s"], p["hd"]),
+                "v": rn(p["b"], p["hkv"], p["s"], p["hd"])}
+    if kernel == "decode_attention":
+        return {"q": rn(p["b"], p["h"], p["hd"]),
+                "k": rn(p["b"], p["s"], p["hkv"], p["hd"]),
+                "v": rn(p["b"], p["s"], p["hkv"], p["hd"]),
+                "length": torch.tensor(p["length"], device=dev)}
+    if kernel == "rglru_scan":
+        a = rn(p["b"], p["t"], p["w"]).sigmoid_().mul_(0.98).add_(0.01)
+        return {"a": a, "b": rn(p["b"], p["t"], p["w"], scale=0.5),
+                "h0": rn(p["b"], p["w"], dt=torch.float32)}
+    shape = (p["b"], p["t"], p["h"], p["hd"])
+    return {"r": rn(*shape), "k": rn(*shape), "v": rn(*shape),
+            "logw": rn(*shape).abs_().mul_(-0.5),
+            "u": rn(p["h"], p["hd"], scale=0.1),
+            "s0": rn(p["b"], p["h"], p["hd"], p["hd"], scale=0.2,
+                     dt=torch.float32)}
+
+
+def ml_call(kernel: str, x: dict, p: dict, plain: bool = False) -> tuple:
+    """One call of the op through ``repro_torch.kernels.ops`` (which
+    launches the kernel on CUDA tensors), or of its plain version."""
+    from repro_torch.kernels import ops, ref
+
+    if kernel == "flash_attention":
+        fn = ref.mha_reference if plain else ops.flash_attention
+        return (fn(x["q"], x["k"], x["v"], causal=True, window=p["window"]),)
+    if kernel == "decode_attention":
+        fn = ref.decode_attention_reference if plain else ops.decode_attention
+        return (fn(x["q"], x["k"], x["v"], x["length"], window=p["window"]),)
+    if kernel == "rglru_scan":
+        fn = ref.rglru_scan_reference if plain else ops.rglru_scan
+        return tuple(fn(x["a"], x["b"], x["h0"]))
+    fn = ref.wkv6_reference if plain else ops.wkv6
+    return tuple(fn(x["r"], x["k"], x["v"], x["logw"], x["u"], x["s0"]))
+
+
+def ml_library(kernel: str, x: dict, p: dict):
+    """One PyTorch call computing the same function, as a yardstick (the
+    port never calls it), or None where there is none: no single call
+    runs the recurrences, and a windowed prefill would need an S x S
+    mask."""
+    import torch.nn.functional as F
+
+    if kernel == "flash_attention" and p["window"] is None:
+        return lambda: F.scaled_dot_product_attention(
+            x["q"], x["k"], x["v"], is_causal=True, enable_gqa=True)
+    if kernel == "decode_attention":
+        hi = min(p["length"], p["s"])
+        lo = 0 if p["window"] is None else max(0, p["length"] - p["window"])
+        k = x["k"][:, lo:hi].transpose(1, 2)
+        v = x["v"][:, lo:hi].transpose(1, 2)
+        return lambda: F.scaled_dot_product_attention(
+            x["q"][:, :, None], k, v, enable_gqa=True)[:, :, 0]
+    return None
+
+
+def ml_bound(kernel: str, p: dict, elem: int) -> dict:
+    """The least time the card could take for the op on these inputs:
+    each input read once and each output written once over 3.35 TB/s,
+    against the operations over the rate of their type.  Attention
+    counts only the (query, key) pairs and cache rows this call's mask
+    keeps; its products can run on the bf16 tensor cores.  The scans'
+    arithmetic is float32 on a float32 carry or state, which no tensor
+    core type holds, so it counts at the float32 rate."""
+    if kernel == "flash_attention":
+        s, w = p["s"], p["window"] or p["s"]
+        pairs = sum(min(i + 1, w) for i in range(s))
+        nbytes = elem * p["b"] * p["s"] * p["hd"] * (2 * p["h"] + 2 * p["hkv"])
+        ops, rate = 4 * p["b"] * p["h"] * p["hd"] * pairs, BF16_OPS_PER_S
+    elif kernel == "decode_attention":
+        hi = min(p["length"], p["s"])
+        lo = 0 if p["window"] is None else max(0, p["length"] - p["window"])
+        rows = max(0, hi - lo)
+        nbytes = elem * p["b"] * p["hd"] * (2 * p["h"] + 2 * p["hkv"] * rows)
+        ops, rate = 4 * p["b"] * p["h"] * p["hd"] * rows, BF16_OPS_PER_S
+    elif kernel == "rglru_scan":
+        n = p["b"] * p["t"] * p["w"]
+        nbytes = 3 * elem * n + 2 * 4 * p["b"] * p["w"]
+        ops, rate = 2 * n, F32_OPS_PER_S
+    else:
+        n = p["b"] * p["t"] * p["h"]
+        nbytes = (5 * elem * n * p["hd"] + elem * p["h"] * p["hd"]
+                  + 2 * 4 * p["b"] * p["h"] * p["hd"] ** 2)
+        ops = n * (5 * p["hd"] ** 2 + 5 * p["hd"])
+        rate = F32_OPS_PER_S
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * ops / rate
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def compare(got: tuple, want: tuple, tol: float) -> tuple:
+    """(max abs error, whether every element is within ``tol`` absolute
+    plus ``tol`` relative), in slices along dim 0 to bound the float32
+    temporaries."""
+    err, ok = 0.0, True
+    for a, b in zip(got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            fail(f"output {tuple(a.shape)} {a.dtype} is not the plain "
+                 f"version's {tuple(b.shape)} {b.dtype}")
+        for i in range(a.shape[0]):
+            d = (a[i].float() - b[i].float()).abs()
+            err = max(err, float(d.max()))
+            ok = ok and bool((d <= tol + tol * b[i].float().abs()).all())
+    return err, ok
+
+
+def phase_ml_path(dev) -> tuple:
+    """The ops path: every case's inputs made first, the four launch
+    counters set to 0, one call of each op through ``ops`` on CUDA
+    tensors, the counters read.  Outputs must be finite, of the input
+    dtype and the oracle's shapes."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rglru_scan import rglru_scan_cuda
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+
+    wrappers = {"flash_attention": flash_attention_cuda,
+                "decode_attention": decode_attention_cuda,
+                "rglru_scan": rglru_scan_cuda, "wkv6": wkv6_cuda}
+    inputs = [ml_inputs(kernel, p, torch.bfloat16, dev, 13 + i)
+              for i, (kernel, _, p) in enumerate(ML_CASES)]
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    outs, walls = [], []
+    for (kernel, _, p), x in zip(ML_CASES, inputs):
+        t = time.perf_counter()
+        outs.append(ml_call(kernel, x, p))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    expected = {k: sum(c[0] == k for c in ML_CASES) for k in wrappers}
+    if launches != expected:
+        fail(f"ops path launched {launches}, expected {expected}")
+    for (kernel, label, _), x, out in zip(ML_CASES, inputs, outs):
+        lead = next(iter(x.values()))     # q, q, a, r: the output's shape
+        if out[0].shape != lead.shape or out[0].dtype != torch.bfloat16:
+            fail(f"{kernel} {label}: output {tuple(out[0].shape)} "
+                 f"{out[0].dtype}, expected {tuple(lead.shape)} bf16")
+        if not all(bool(torch.isfinite(o).all()) for o in out):
+            fail(f"{kernel} {label}: non-finite output")
+    print("ops path: launches " + ", ".join(f"{k} {v}" for k, v in
+                                            launches.items())
+          + "; first-call wall " + ", ".join(
+              f"{c[1]} {w} s" for c, w in zip(ML_CASES, walls)), flush=True)
+    return launches, inputs, outs
+
+
+def phase_ml_kernels(dev, inputs: list, outs: list) -> dict:
+    """Each op's path output against its plain version on the same bf16
+    inputs (tolerance 2e-2), then kernel, plain and library times and
+    the bound; then float32 at cut lengths (tolerance 1e-4).  Frees each
+    case's tensors when done."""
+    reps = {"flash_attention": 3, "decode_attention": 10, "rglru_scan": 10,
+            "wkv6": 5}
+    results = {}
+    for i, (kernel, label, p) in enumerate(ML_CASES):
+        x, got = inputs[i], outs[i]
+        want = ml_call(kernel, x, p, plain=True)
+        err, ok = compare(got, want, ML_TOL[torch.bfloat16])
+        if not ok:
+            fail(f"{kernel} {label}: kernel differs from its plain version "
+                 f"(max abs err {err}, tolerance {ML_TOL[torch.bfloat16]})")
+        del want
+        ms = cuda_ms(lambda: ml_call(kernel, x, p), reps[kernel])
+        plain_ms = cuda_ms(lambda: ml_call(kernel, x, p, plain=True), 1,
+                           warm=False)
+        lib = ml_library(kernel, x, p)
+        library_ms = cuda_ms(lib, 10) if lib is not None else None
+        lib_err = (compare((lib(),), got, 1.0)[0] if lib is not None
+                   else None)
+        results[label] = {"kernel": kernel, "shape": {"config": label, **p},
+                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "library_ms": library_ms,
+                          "library_max_abs_err": lib_err,
+                          **ml_bound(kernel, p, 2)}
+        r = results[label]
+        print(f"{kernel} {label}: max abs err {err} vs plain; kernel {ms} "
+              f"ms, plain {plain_ms} ms, library {library_ms} ms, bound "
+              f"{r['bound_ms']} ms by {r['bound_by']} ({r['bytes']} B, "
+              f"{r['ops']} ops)", flush=True)
+        inputs[i] = outs[i] = None
+        del x, got
+        torch.cuda.empty_cache()
+    for j, (kernel, p) in enumerate(ML_F32_CASES):
+        x = ml_inputs(kernel, p, torch.float32, dev, 101 + j)
+        err, ok = compare(ml_call(kernel, x, p),
+                          ml_call(kernel, x, p, plain=True),
+                          ML_TOL[torch.float32])
+        if not ok:
+            fail(f"{kernel} float32 {p}: kernel differs from its plain "
+                 f"version (max abs err {err}, tolerance "
+                 f"{ML_TOL[torch.float32]})")
+        results[f"{kernel} float32 {j}"] = {"kernel": kernel, "shape": p,
+                                            "max_abs_err": err}
+        print(f"{kernel} float32 {p}: max abs err {err} vs plain",
+              flush=True)
+        del x
+        torch.cuda.empty_cache()
+    return results
+
+
+def ml_record(launches: dict, results: dict) -> list:
+    """One entry per kernel: the numbers of its first path shape, every
+    other shape under ``more_shapes``, the float32 checks' errors."""
+    keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "bytes", "ops")
+    out = []
+    for kernel, (source, replaces) in ML_SOURCES.items():
+        rows = [r for r in results.values()
+                if r["kernel"] == kernel and "ms" in r]
+        f32 = [r["max_abs_err"] for r in results.values()
+               if r["kernel"] == kernel and "ms" not in r]
+        out.append({"name": kernel, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": launches[kernel],
+                    **{k: rows[0][k] for k in keys},
+                    "more_shapes": [{k: r[k] for k in keys}
+                                    for r in rows[1:]],
+                    "f32_max_abs_err": max(f32)})
+    return out
 
 
 def phase_main_path(dev) -> tuple:
@@ -343,6 +637,10 @@ def main() -> None:
     name = torch.cuda.get_device_name(0)
     smi = phase_card_and_build()
     err, timings = phase_kernel_vs_plain(dev)
+    ml_launches, inputs, outs = phase_ml_path(dev)
+    ml = phase_ml_kernels(dev, inputs, outs)
+    del inputs, outs
+    torch.cuda.empty_cache()
     launches, runs = phase_main_path(dev)
     pin = phase_statistical_pin(dev)
     prof = phase_profile(dev) if args.profile else None
@@ -356,11 +654,12 @@ def main() -> None:
         "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
         "library_ms": None, "bit_equal": err == 0.0,
         "shape": {"rows": len(SEEDS) * M, "n": N_MAIN},
-        "bytes": main_t["bytes"]}]}
+        "bytes": main_t["bytes"]}] + ml_record(ml_launches, ml)}
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(
             {**record, "device": name, "sweeps": timings, "main_path": runs,
+             "ops_path": ml,
              "statistical_pin": pin, "profile": prof}, indent=1))
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

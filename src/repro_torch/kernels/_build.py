@@ -16,12 +16,16 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: every kernel library, one per ``csrc/<name>.cu``
+KERNELS = ("tree_sweep", "flash_attention", "decode_attention",
+           "rglru_scan", "wkv6")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -49,31 +53,45 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{_source_hash()}.so"
 
 
-def build(name: str) -> str:
-    """Compile the library of kernel ``name`` unless it is built; returns
-    nvcc's output, empty when it was built already (``-Xptxas -v``
-    reports registers and spills there)."""
-    out = library_path(name)
-    if out.exists():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SRC_DIR / f"{name}.cu")],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name} "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)
-    return proc.stdout
+def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+    """Compile every library of ``names`` that is not built yet, one
+    ``nvcc`` for each, all started together; returns each one's nvcc
+    output (empty for a library that was built already; ``-Xptxas -v``
+    reports registers and spills there).  Raises with the output of
+    every failed build."""
+    names = list(names)
+    nvcc = nvcc_path() if any(not library_path(n).exists()
+                              for n in names) else ""
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        procs[name] = (tmp, out, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+             str(SRC_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = {name: "" for name in names}
+    failed = []
+    for name, (tmp, out, proc) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name} (exit {proc.returncode})"
+                          f":\n{logs[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _LOADED.get(name)
     if lib is None:
-        build(name)
+        build_all([name])
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
     return lib

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core.planner import LevelCSR
+from . import _cuda
 
 
 def fwd_at_parent(parent: torch.Tensor, fwd: torch.Tensor,
@@ -51,28 +52,9 @@ def level_sweep(parent: torch.Tensor, depth: torch.Tensor, fp: torch.Tensor,
     return t
 
 
-def _check(name: str, x: torch.Tensor, dtype: torch.dtype,
-           device: torch.device) -> None:
-    if x.device != device:
-        raise ValueError(f"tree_sweep_cuda: {name} is on {x.device}, "
-                         f"expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"tree_sweep_cuda: {name} is {x.dtype}, "
-                        f"expected {dtype}")
-    if not x.is_contiguous():
-        raise ValueError(f"tree_sweep_cuda: {name} must be contiguous")
-
-
-def _bind(lib: ctypes.CDLL) -> None:
-    if getattr(lib, "_repro_bound", False):
-        return
-    p, i64 = ctypes.c_void_p, ctypes.c_longlong
-    lib.repro_tree_sweep_f32.argtypes = [p, p, p, p, p, p, p, ctypes.c_int,
-                                         i64, i64, i64, p]
-    lib.repro_tree_sweep_f32.restype = ctypes.c_int
-    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    lib._repro_bound = True
+_I64, _P = ctypes.c_longlong, ctypes.c_void_p
+_SIGNATURES = {"repro_tree_sweep_f32": [_P, _P, _P, _P, _P, _P, _P,
+                                        ctypes.c_int, _I64, _I64, _I64, _P]}
 
 
 def tree_sweep_cuda(parent: torch.Tensor, depth: torch.Tensor,
@@ -85,11 +67,8 @@ def tree_sweep_cuda(parent: torch.Tensor, depth: torch.Tensor,
     other input and on a failed build or launch.
     ``tree_sweep_cuda.launches`` counts the calls that launched the
     kernel."""
-    from . import _build
-
-    dev = fp.device
-    if dev.type != "cuda":
-        raise ValueError(f"tree_sweep_cuda needs CUDA tensors, got {dev}")
+    fn = "tree_sweep_cuda"
+    dev = _cuda.require_cuda(fn, fp)
     if link.shape != fp.shape or fp.dim() < 1:
         raise ValueError(f"tree_sweep_cuda: fp {tuple(fp.shape)} and link "
                          f"{tuple(link.shape)} must have one shape (..., n)")
@@ -97,13 +76,14 @@ def tree_sweep_cuda(parent: torch.Tensor, depth: torch.Tensor,
         raise ValueError(f"tree_sweep_cuda: t0 {tuple(t0.shape)} must be "
                          f"{tuple(fp.shape[:-1])}")
     for name, x in (("fp", fp), ("link", link), ("t0", t0)):
-        _check(name, x, torch.float32, dev)
+        _cuda.check_tensor(fn, name, x, dev, (torch.float32,))
     n = int(fp.shape[-1])
     if int(parent.shape[0]) != n:
         raise ValueError(f"tree_sweep_cuda: plan has {parent.shape[0]} "
                          f"nodes, planes have {n}")
-    _check("levels.nodes", levels.nodes, torch.int32, dev)
-    _check("levels.parents", levels.parents, torch.int32, dev)
+    _cuda.check_tensor(fn, "levels.nodes", levels.nodes, dev, (torch.int32,))
+    _cuda.check_tensor(fn, "levels.parents", levels.parents, dev,
+                       (torch.int32,))
     ptr = np.ascontiguousarray(levels.ptr, dtype=np.int64)
     count = int(levels.nodes.numel())
     if (int(levels.parents.numel()) != count or count >= max(n, 1)
@@ -114,17 +94,13 @@ def tree_sweep_cuda(parent: torch.Tensor, depth: torch.Tensor,
     n_levels = min(int(height), len(ptr) - 1)
     rows = fp.numel() // n if n else 0
     out = torch.empty_like(fp)
-    lib = _build.load("tree_sweep")
-    _bind(lib)
+    lib = _cuda.library("tree_sweep", _SIGNATURES)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.repro_tree_sweep_f32(
             out.data_ptr(), fp.data_ptr(), link.data_ptr(), t0.data_ptr(),
             levels.nodes.data_ptr(), levels.parents.data_ptr(),
-            ptr.ctypes.data, n_levels, rows, n, int(root), stream)
-    if err != 0:
-        raise RuntimeError("tree_sweep_cuda launch failed: "
-                           + lib.repro_cuda_error_string(err).decode())
+            ptr.ctypes.data, n_levels, rows, n, int(root), _cuda.stream(dev))
+    _cuda.raise_on(err, lib, fn)
     tree_sweep_cuda.launches += 1
     return out
 
