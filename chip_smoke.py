@@ -11,21 +11,26 @@ n = 1,000,000 and 10,000,000, whose rows it checks and whose LDT it pins
 against a float64 numpy oracle; and the attention and recurrence ops
 (``repro_torch.kernels.ops``) at the full widths of qwen3-0.6b,
 recurrentgemma-9b and rwkv6-1.6b, each held against its plain version
-and timed beside its bound and, for attention, a PyTorch library call.  Each phase prints one line; the line before the
-last is the kernels' JSON record, the last line
-``{"ok": true, "device": {...}}``.  ``--json`` also writes every number
-of the run to PATH; ``--profile`` also traces one warm ``stable_sweep``
-per main-path shape.  Any failed phase exits non-zero, and so does a
-machine without CUDA.  Imports ``repro_torch`` only.
+and timed beside its bound and, for attention, a PyTorch library call;
+then each op again in float32 at the same shapes.  Each phase prints
+one line; the line before the last is the kernels' JSON record, the
+last line ``{"ok": true, "device": {...}}``.  ``--json`` also writes
+every number of the run to PATH; ``--profile`` also traces one warm
+``stable_sweep`` per main-path shape.  Any failed phase exits non-zero,
+and so does a machine without CUDA.  Imports ``repro_torch`` only.
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
+import math
 import subprocess
 import sys
 import time
+from dataclasses import dataclass
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 import torch
@@ -46,7 +51,8 @@ FRAME_B = 122.0                    # Snow DATA frame at a 64 B payload
 # the registry's SHAPES): (kernel, label, shape).  Cuts of batch only:
 # 32 -> 1 for flash attention (a simple kernel does about 4.4e12
 # operations per call) and 32 -> 8 for the two scans (the plain
-# versions' float32 copies must fit beside the inputs).
+# versions' float32 copies must fit beside the inputs).  Every case runs
+# in bfloat16 (the configs' dtype), then again in float32.
 ML_CASES = (
     ("flash_attention", "qwen3-0.6b prefill_32k",
      dict(b=1, h=16, hkv=8, s=32768, hd=128, window=None)),
@@ -60,28 +66,143 @@ ML_CASES = (
      dict(b=8, t=32768, w=4096)),
     ("wkv6", "rwkv6-1.6b prefill_32k", dict(b=8, t=32768, h=32, hd=64)),
 )
-# float32 at cut lengths (widths kept), where only the order of the
-# float32 sums differs between kernel and plain version
-ML_F32_CASES = (
-    ("flash_attention", dict(b=1, h=16, hkv=8, s=2048, hd=128, window=None)),
-    ("flash_attention", dict(b=1, h=16, hkv=1, s=4096, hd=256, window=2048)),
-    ("decode_attention",
-     dict(b=8, h=16, hkv=8, s=32768, hd=128, length=32000, window=None)),
-    ("decode_attention",
-     dict(b=8, h=16, hkv=1, s=2048, hd=256, length=2048, window=None)),
-    ("rglru_scan", dict(b=2, t=4096, w=4096)),
-    ("wkv6", dict(b=1, t=2048, h=32, hd=64)),
-)
-ML_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-ML_SOURCES = {       # kernel: (source in the port, Pallas kernel it replaces)
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention.py:82"),
-    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
-                         "src/repro/kernels/decode_attention.py:76"),
-    "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
-                   "src/repro/kernels/rglru_scan.py:62"),
-    "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
-             "src/repro/kernels/wkv6.py:77"),
+# (rtol, atol) of kernel against plain version, element by element:
+# |d| <= atol + rtol |plain|.  In bfloat16 the absolute part is 2e-2 of
+# the plain output's RMS, since an attention output that averages 32k
+# values is about 0.01 and a fixed 2e-2 would pass anything; only one
+# bf16 rounding step at the output's own magnitude separates the two.
+# In float32 only the order of the float32 sums differs: 1e-4 absolute
+# and relative.
+ML_TOL = {torch.bfloat16: (2e-2, "rms"), torch.float32: (1e-4, 1e-4)}
+
+
+def _flash_inputs(p: dict, rn, dev) -> dict:
+    return {"q": rn(p["b"], p["h"], p["s"], p["hd"]),
+            "k": rn(p["b"], p["hkv"], p["s"], p["hd"]),
+            "v": rn(p["b"], p["hkv"], p["s"], p["hd"])}
+
+
+def _flash_library(x: dict, p: dict):
+    """SDPA with GQA; none for a window, which would need an S x S mask."""
+    import torch.nn.functional as F
+
+    if p["window"] is not None:
+        return None
+    return lambda: F.scaled_dot_product_attention(
+        x["q"], x["k"], x["v"], is_causal=True, enable_gqa=True)
+
+
+def _flash_bound(p: dict, elem: int) -> tuple:
+    """Only the (query, key) pairs the mask keeps; bf16 tensor-core rate."""
+    w = p["window"] or p["s"]
+    pairs = sum(min(i + 1, w) for i in range(p["s"]))
+    nbytes = elem * p["b"] * p["s"] * p["hd"] * (2 * p["h"] + 2 * p["hkv"])
+    return nbytes, 4 * p["b"] * p["h"] * p["hd"] * pairs, BF16_OPS_PER_S
+
+
+def _decode_rows(p: dict) -> tuple:
+    """The valid cache rows [lo, hi) of this length and window."""
+    hi = min(p["length"], p["s"])
+    lo = 0 if p["window"] is None else max(0, p["length"] - p["window"])
+    return lo, hi
+
+
+def _decode_inputs(p: dict, rn, dev) -> dict:
+    return {"q": rn(p["b"], p["h"], p["hd"]),
+            "k": rn(p["b"], p["s"], p["hkv"], p["hd"]),
+            "v": rn(p["b"], p["s"], p["hkv"], p["hd"]),
+            "length": torch.tensor(p["length"], device=dev)}
+
+
+def _decode_library(x: dict, p: dict):
+    """SDPA with GQA on the valid slice of the transposed cache."""
+    import torch.nn.functional as F
+
+    lo, hi = _decode_rows(p)
+    k = x["k"][:, lo:hi].transpose(1, 2)
+    v = x["v"][:, lo:hi].transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(
+        x["q"][:, :, None], k, v, enable_gqa=True)[:, :, 0]
+
+
+def _decode_bound(p: dict, elem: int) -> tuple:
+    """Only the valid cache rows; bf16 tensor-core rate."""
+    lo, hi = _decode_rows(p)
+    rows = max(0, hi - lo)
+    nbytes = elem * p["b"] * p["hd"] * (2 * p["h"] + 2 * p["hkv"] * rows)
+    return nbytes, 4 * p["b"] * p["h"] * p["hd"] * rows, BF16_OPS_PER_S
+
+
+def _rglru_inputs(p: dict, rn, dev) -> dict:
+    """Gates in (0.01, 0.99), as the tests draw them."""
+    a = rn(p["b"], p["t"], p["w"]).sigmoid_().mul_(0.98).add_(0.01)
+    return {"a": a, "b": rn(p["b"], p["t"], p["w"], scale=0.5),
+            "h0": rn(p["b"], p["w"], dt=torch.float32)}
+
+
+def _rglru_bound(p: dict, elem: int) -> tuple:
+    """float32 arithmetic on a float32 carry: the float32 rate."""
+    n = p["b"] * p["t"] * p["w"]
+    return 3 * elem * n + 2 * 4 * p["b"] * p["w"], 2 * n, F32_OPS_PER_S
+
+
+def _wkv6_inputs(p: dict, rn, dev) -> dict:
+    """Log-decays in (-inf, 0], as the tests draw them."""
+    shape = (p["b"], p["t"], p["h"], p["hd"])
+    return {"r": rn(*shape), "k": rn(*shape), "v": rn(*shape),
+            "logw": rn(*shape).abs_().mul_(-0.5),
+            "u": rn(p["h"], p["hd"], scale=0.1),
+            "s0": rn(p["b"], p["h"], p["hd"], p["hd"], scale=0.2,
+                     dt=torch.float32)}
+
+
+def _wkv6_bound(p: dict, elem: int) -> tuple:
+    """float32 arithmetic on a float32 hd x hd state: the float32 rate."""
+    n = p["b"] * p["t"] * p["h"]
+    nbytes = (5 * elem * n * p["hd"] + elem * p["h"] * p["hd"]
+              + 2 * 4 * p["b"] * p["h"] * p["hd"] ** 2)
+    return nbytes, n * (5 * p["hd"] ** 2 + 5 * p["hd"]), F32_OPS_PER_S
+
+
+@dataclass(frozen=True)
+class MlOp:
+    """Everything the smoke knows of one op.  ``inputs(p, rn, dev)`` makes
+    its arguments in call order (``rn`` draws seeded normals on ``dev``);
+    ``kwargs(p)`` its keywords; ``plain`` names its plain version in
+    ``repro_torch.kernels.ref``; ``library(x, p)`` gives one PyTorch call
+    of the same function as a yardstick (the port never calls it) or
+    None where there is none; ``bound(p, elem)`` gives (bytes,
+    operations, rate) of the least work; ``reps`` is how many kernel
+    calls one timing averages."""
+    source: str
+    replaces: str
+    plain: str
+    inputs: Callable
+    kwargs: Callable
+    bound: Callable
+    library: Callable = lambda x, p: None
+    reps: int = 10
+
+
+ML_OPS = {
+    "flash_attention": MlOp(
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:82", "mha_reference",
+        _flash_inputs, lambda p: {"causal": True, "window": p["window"]},
+        _flash_bound, _flash_library, reps=3),
+    "decode_attention": MlOp(
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:76",
+        "decode_attention_reference", _decode_inputs,
+        lambda p: {"window": p["window"]}, _decode_bound, _decode_library),
+    "rglru_scan": MlOp(
+        "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "src/repro/kernels/rglru_scan.py:62", "rglru_scan_reference",
+        _rglru_inputs, lambda p: {}, _rglru_bound),
+    "wkv6": MlOp(
+        "src/repro_torch/kernels/csrc/wkv6.cu",
+        "src/repro/kernels/wkv6.py:77", "wkv6_reference",
+        _wkv6_inputs, lambda p: {}, _wkv6_bound, reps=5),
 }
 
 
@@ -248,9 +369,7 @@ def phase_kernel_vs_plain(dev) -> tuple:
 
 
 def ml_inputs(kernel: str, p: dict, dtype, dev, seed: int) -> dict:
-    """Seeded inputs of one op, made on the card (the tests' value
-    ranges: unit normals, RG-LRU gates in (0.01, 0.99), WKV log-decays
-    in (-inf, 0])."""
+    """Seeded inputs of one op, made on the card."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
 
@@ -258,25 +377,7 @@ def ml_inputs(kernel: str, p: dict, dtype, dev, seed: int) -> dict:
         return torch.randn(shape, generator=g, device=dev,
                            dtype=dt).mul_(scale)
 
-    if kernel == "flash_attention":
-        return {"q": rn(p["b"], p["h"], p["s"], p["hd"]),
-                "k": rn(p["b"], p["hkv"], p["s"], p["hd"]),
-                "v": rn(p["b"], p["hkv"], p["s"], p["hd"])}
-    if kernel == "decode_attention":
-        return {"q": rn(p["b"], p["h"], p["hd"]),
-                "k": rn(p["b"], p["s"], p["hkv"], p["hd"]),
-                "v": rn(p["b"], p["s"], p["hkv"], p["hd"]),
-                "length": torch.tensor(p["length"], device=dev)}
-    if kernel == "rglru_scan":
-        a = rn(p["b"], p["t"], p["w"]).sigmoid_().mul_(0.98).add_(0.01)
-        return {"a": a, "b": rn(p["b"], p["t"], p["w"], scale=0.5),
-                "h0": rn(p["b"], p["w"], dt=torch.float32)}
-    shape = (p["b"], p["t"], p["h"], p["hd"])
-    return {"r": rn(*shape), "k": rn(*shape), "v": rn(*shape),
-            "logw": rn(*shape).abs_().mul_(-0.5),
-            "u": rn(p["h"], p["hd"], scale=0.1),
-            "s0": rn(p["b"], p["h"], p["hd"], p["hd"], scale=0.2,
-                     dt=torch.float32)}
+    return ML_OPS[kernel].inputs(p, rn, dev)
 
 
 def ml_call(kernel: str, x: dict, p: dict, plain: bool = False) -> tuple:
@@ -284,88 +385,47 @@ def ml_call(kernel: str, x: dict, p: dict, plain: bool = False) -> tuple:
     launches the kernel on CUDA tensors), or of its plain version."""
     from repro_torch.kernels import ops, ref
 
-    if kernel == "flash_attention":
-        fn = ref.mha_reference if plain else ops.flash_attention
-        return (fn(x["q"], x["k"], x["v"], causal=True, window=p["window"]),)
-    if kernel == "decode_attention":
-        fn = ref.decode_attention_reference if plain else ops.decode_attention
-        return (fn(x["q"], x["k"], x["v"], x["length"], window=p["window"]),)
-    if kernel == "rglru_scan":
-        fn = ref.rglru_scan_reference if plain else ops.rglru_scan
-        return tuple(fn(x["a"], x["b"], x["h0"]))
-    fn = ref.wkv6_reference if plain else ops.wkv6
-    return tuple(fn(x["r"], x["k"], x["v"], x["logw"], x["u"], x["s0"]))
-
-
-def ml_library(kernel: str, x: dict, p: dict):
-    """One PyTorch call computing the same function, as a yardstick (the
-    port never calls it), or None where there is none: no single call
-    runs the recurrences, and a windowed prefill would need an S x S
-    mask."""
-    import torch.nn.functional as F
-
-    if kernel == "flash_attention" and p["window"] is None:
-        return lambda: F.scaled_dot_product_attention(
-            x["q"], x["k"], x["v"], is_causal=True, enable_gqa=True)
-    if kernel == "decode_attention":
-        hi = min(p["length"], p["s"])
-        lo = 0 if p["window"] is None else max(0, p["length"] - p["window"])
-        k = x["k"][:, lo:hi].transpose(1, 2)
-        v = x["v"][:, lo:hi].transpose(1, 2)
-        return lambda: F.scaled_dot_product_attention(
-            x["q"][:, :, None], k, v, enable_gqa=True)[:, :, 0]
-    return None
+    op = ML_OPS[kernel]
+    fn = getattr(ref, op.plain) if plain else getattr(ops, kernel)
+    out = fn(*x.values(), **op.kwargs(p))
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
 
 
 def ml_bound(kernel: str, p: dict, elem: int) -> dict:
     """The least time the card could take for the op on these inputs:
     each input read once and each output written once over 3.35 TB/s,
-    against the operations over the rate of their type.  Attention
-    counts only the (query, key) pairs and cache rows this call's mask
-    keeps; its products can run on the bf16 tensor cores.  The scans'
-    arithmetic is float32 on a float32 carry or state, which no tensor
-    core type holds, so it counts at the float32 rate."""
-    if kernel == "flash_attention":
-        s, w = p["s"], p["window"] or p["s"]
-        pairs = sum(min(i + 1, w) for i in range(s))
-        nbytes = elem * p["b"] * p["s"] * p["hd"] * (2 * p["h"] + 2 * p["hkv"])
-        ops, rate = 4 * p["b"] * p["h"] * p["hd"] * pairs, BF16_OPS_PER_S
-    elif kernel == "decode_attention":
-        hi = min(p["length"], p["s"])
-        lo = 0 if p["window"] is None else max(0, p["length"] - p["window"])
-        rows = max(0, hi - lo)
-        nbytes = elem * p["b"] * p["hd"] * (2 * p["h"] + 2 * p["hkv"] * rows)
-        ops, rate = 4 * p["b"] * p["h"] * p["hd"] * rows, BF16_OPS_PER_S
-    elif kernel == "rglru_scan":
-        n = p["b"] * p["t"] * p["w"]
-        nbytes = 3 * elem * n + 2 * 4 * p["b"] * p["w"]
-        ops, rate = 2 * n, F32_OPS_PER_S
-    else:
-        n = p["b"] * p["t"] * p["h"]
-        nbytes = (5 * elem * n * p["hd"] + elem * p["h"] * p["hd"]
-                  + 2 * 4 * p["b"] * p["h"] * p["hd"] ** 2)
-        ops = n * (5 * p["hd"] ** 2 + 5 * p["hd"])
-        rate = F32_OPS_PER_S
+    against the operations over the rate of their type (attention's
+    products can run on the bf16 tensor cores; the scans' float32
+    carry or state holds no tensor-core type)."""
+    nbytes, ops, rate = ML_OPS[kernel].bound(p, elem)
     by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     by_ops = 1e3 * ops / rate
     return {"bytes": nbytes, "ops": ops, "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def compare(got: tuple, want: tuple, tol: float) -> tuple:
-    """(max abs error, whether every element is within ``tol`` absolute
-    plus ``tol`` relative), in slices along dim 0 to bound the float32
-    temporaries."""
-    err, ok = 0.0, True
+def compare(got: tuple, want: tuple, dtype) -> tuple:
+    """(max abs error, the absolute tolerance of the first output,
+    whether every element is within ``ML_TOL[dtype]``), in slices along
+    dim 0 to bound the float32 temporaries."""
+    rtol, atol = ML_TOL[dtype]
+    err, ok, atols = 0.0, True, []
     for a, b in zip(got, want):
         if a.shape != b.shape or a.dtype != b.dtype:
             fail(f"output {tuple(a.shape)} {a.dtype} is not the plain "
                  f"version's {tuple(b.shape)} {b.dtype}")
+        if atol == "rms":
+            sq = sum(float(b[i].float().square().sum())
+                     for i in range(b.shape[0]))
+            atols.append(rtol * math.sqrt(sq / b.numel()))
+        else:
+            atols.append(atol)
         for i in range(a.shape[0]):
-            d = (a[i].float() - b[i].float()).abs()
+            want_i = b[i].float()
+            d = (a[i].float() - want_i).abs()
             err = max(err, float(d.max()))
-            ok = ok and bool((d <= tol + tol * b[i].float().abs()).all())
-    return err, ok
+            ok = ok and bool((d <= atols[-1] + rtol * want_i.abs()).all())
+    return err, atols[0], ok
 
 
 def phase_ml_path(dev) -> tuple:
@@ -373,14 +433,8 @@ def phase_ml_path(dev) -> tuple:
     counters set to 0, one call of each op through ``ops`` on CUDA
     tensors, the counters read.  Outputs must be finite, of the input
     dtype and the oracle's shapes."""
-    from repro_torch.kernels.decode_attention import decode_attention_cuda
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.rglru_scan import rglru_scan_cuda
-    from repro_torch.kernels.wkv6 import wkv6_cuda
-
-    wrappers = {"flash_attention": flash_attention_cuda,
-                "decode_attention": decode_attention_cuda,
-                "rglru_scan": rglru_scan_cuda, "wkv6": wkv6_cuda}
+    wrappers = {k: getattr(importlib.import_module(
+        f"repro_torch.kernels.{k}"), f"{k}_cuda") for k in ML_OPS}
     inputs = [ml_inputs(kernel, p, torch.bfloat16, dev, 13 + i)
               for i, (kernel, _, p) in enumerate(ML_CASES)]
     torch.cuda.synchronize()
@@ -412,52 +466,50 @@ def phase_ml_path(dev) -> tuple:
 
 def phase_ml_kernels(dev, inputs: list, outs: list) -> dict:
     """Each op's path output against its plain version on the same bf16
-    inputs (tolerance 2e-2), then kernel, plain and library times and
-    the bound; then float32 at cut lengths (tolerance 1e-4).  Frees each
-    case's tensors when done."""
-    reps = {"flash_attention": 3, "decode_attention": 10, "rglru_scan": 10,
-            "wkv6": 5}
+    inputs, then kernel, plain and library times and the bound; then
+    each shape again in float32.  Frees each case's tensors when done."""
     results = {}
     for i, (kernel, label, p) in enumerate(ML_CASES):
-        x, got = inputs[i], outs[i]
+        op, x, got = ML_OPS[kernel], inputs[i], outs[i]
         want = ml_call(kernel, x, p, plain=True)
-        err, ok = compare(got, want, ML_TOL[torch.bfloat16])
+        err, atol, ok = compare(got, want, torch.bfloat16)
         if not ok:
             fail(f"{kernel} {label}: kernel differs from its plain version "
-                 f"(max abs err {err}, tolerance {ML_TOL[torch.bfloat16]})")
+                 f"(max abs err {err}, tolerance {atol} + "
+                 f"{ML_TOL[torch.bfloat16][0]} relative)")
         del want
-        ms = cuda_ms(lambda: ml_call(kernel, x, p), reps[kernel])
+        ms = cuda_ms(lambda: ml_call(kernel, x, p), op.reps)
         plain_ms = cuda_ms(lambda: ml_call(kernel, x, p, plain=True), 1,
                            warm=False)
-        lib = ml_library(kernel, x, p)
+        lib = op.library(x, p)
         library_ms = cuda_ms(lib, 10) if lib is not None else None
-        lib_err = (compare((lib(),), got, 1.0)[0] if lib is not None
-                   else None)
+        lib_err = (compare((lib(),), got, torch.bfloat16)[0]
+                   if lib is not None else None)
         results[label] = {"kernel": kernel, "shape": {"config": label, **p},
-                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                          "library_ms": library_ms,
+                          "max_abs_err": err, "atol": atol, "ms": ms,
+                          "plain_ms": plain_ms, "library_ms": library_ms,
                           "library_max_abs_err": lib_err,
                           **ml_bound(kernel, p, 2)}
         r = results[label]
-        print(f"{kernel} {label}: max abs err {err} vs plain; kernel {ms} "
-              f"ms, plain {plain_ms} ms, library {library_ms} ms, bound "
-              f"{r['bound_ms']} ms by {r['bound_by']} ({r['bytes']} B, "
-              f"{r['ops']} ops)", flush=True)
+        print(f"{kernel} {label}: max abs err {err} vs plain (atol {atol}); "
+              f"kernel {ms} ms, plain {plain_ms} ms, library {library_ms} "
+              f"ms, bound {r['bound_ms']} ms by {r['bound_by']} "
+              f"({r['bytes']} B, {r['ops']} ops)", flush=True)
         inputs[i] = outs[i] = None
         del x, got
         torch.cuda.empty_cache()
-    for j, (kernel, p) in enumerate(ML_F32_CASES):
+    for j, (kernel, label, p) in enumerate(ML_CASES):
         x = ml_inputs(kernel, p, torch.float32, dev, 101 + j)
-        err, ok = compare(ml_call(kernel, x, p),
-                          ml_call(kernel, x, p, plain=True),
-                          ML_TOL[torch.float32])
+        err, atol, ok = compare(ml_call(kernel, x, p),
+                                ml_call(kernel, x, p, plain=True),
+                                torch.float32)
         if not ok:
-            fail(f"{kernel} float32 {p}: kernel differs from its plain "
-                 f"version (max abs err {err}, tolerance "
-                 f"{ML_TOL[torch.float32]})")
-        results[f"{kernel} float32 {j}"] = {"kernel": kernel, "shape": p,
-                                            "max_abs_err": err}
-        print(f"{kernel} float32 {p}: max abs err {err} vs plain",
+            fail(f"{kernel} {label} float32: kernel differs from its plain "
+                 f"version (max abs err {err}, tolerance {atol} + "
+                 f"{ML_TOL[torch.float32][0]} relative)")
+        results[f"{label} float32"] = {"kernel": kernel, "shape": p,
+                                       "max_abs_err": err}
+        print(f"{kernel} {label} float32: max abs err {err} vs plain",
               flush=True)
         del x
         torch.cuda.empty_cache()
@@ -467,16 +519,16 @@ def phase_ml_kernels(dev, inputs: list, outs: list) -> dict:
 def ml_record(launches: dict, results: dict) -> list:
     """One entry per kernel: the numbers of its first path shape, every
     other shape under ``more_shapes``, the float32 checks' errors."""
-    keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+    keys = ("shape", "max_abs_err", "atol", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "bytes", "ops")
     out = []
-    for kernel, (source, replaces) in ML_SOURCES.items():
+    for kernel, op in ML_OPS.items():
         rows = [r for r in results.values()
                 if r["kernel"] == kernel and "ms" in r]
         f32 = [r["max_abs_err"] for r in results.values()
                if r["kernel"] == kernel and "ms" not in r]
-        out.append({"name": kernel, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": launches[kernel],
+        out.append({"name": kernel, "route": "cuda", "source": op.source,
+                    "replaces": op.replaces, "launches": launches[kernel],
                     **{k: rows[0][k] for k in keys},
                     "more_shapes": [{k: r[k] for k in keys}
                                     for r in rows[1:]],
