@@ -4,20 +4,24 @@
     python3 chip_smoke.py [--json PATH] [--profile]
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
-(one ``nvcc`` per source, all started together), holds each against its
-plain PyTorch version on the card, and drives the port's two paths: the
-stable sweep (``repro_torch.core.engine.stable_sweep``) at
-n = 1,000,000 and 10,000,000, whose rows it checks and whose LDT it pins
-against a float64 numpy oracle; and the attention and recurrence ops
+(one ``nvcc`` per source, all started together) and prints, per library,
+ptxas's registers and spills and the counts of the SASS instructions
+that show its design (``HGMMA``, ``UTMALDG``, ``LDGSTS``, ``HMMA`` from
+``cuobjdump -sass``); holds each kernel against its plain PyTorch
+version on the card, and drives the port's two paths: the stable sweep
+(``repro_torch.core.engine.stable_sweep``) at n = 1,000,000 and
+10,000,000, whose rows it checks and whose LDT it pins against a float64
+numpy oracle; and the attention and recurrence ops
 (``repro_torch.kernels.ops``) at the full widths of qwen3-0.6b,
 recurrentgemma-9b and rwkv6-1.6b, each held against its plain version
-and timed beside its bound and, for attention, a PyTorch library call;
-then each op again in float32 at the same shapes.  Each phase prints
-one line; the line before the last is the kernels' JSON record, the
-last line ``{"ok": true, "device": {...}}``.  ``--json`` also writes
-every number of the run to PATH; ``--profile`` also traces one warm
-``stable_sweep`` per main-path shape.  Any failed phase exits non-zero,
-and so does a machine without CUDA.  Imports ``repro_torch`` only.
+and timed beside its bound and, for attention, a PyTorch library call
+(SDPA; for the sliding window, compiled FlexAttention); then each op
+again in float32 at the same shapes. Each phase prints its lines as it
+ends; the line before the last is the kernels' JSON record, the last
+line ``{"ok": true, "device": {...}}``. ``--json`` also writes every
+number of the run to PATH; ``--profile`` also traces one warm
+``stable_sweep`` per main-path shape. Any failed phase exits non-zero,
+and so does a machine without CUDA. Imports ``repro_torch`` only.
 """
 from __future__ import annotations
 
@@ -83,13 +87,24 @@ def _flash_inputs(p: dict, rn, dev) -> dict:
 
 
 def _flash_library(x: dict, p: dict):
-    """SDPA with GQA; none for a window, which would need an S x S mask."""
+    """SDPA with GQA; for a window, FlexAttention compiled with a causal
+    sliding-window block mask, which skips the masked blocks as the
+    kernel does.  Returns (call, name of the call)."""
     import torch.nn.functional as F
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
 
-    if p["window"] is not None:
-        return None
-    return lambda: F.scaled_dot_product_attention(
-        x["q"], x["k"], x["v"], is_causal=True, enable_gqa=True)
+    if p["window"] is None:
+        return (lambda: F.scaled_dot_product_attention(
+            x["q"], x["k"], x["v"], is_causal=True, enable_gqa=True),
+            "scaled_dot_product_attention(is_causal, enable_gqa)")
+    w, s = p["window"], p["s"]
+    mask = create_block_mask(lambda b, h, qi, ki: (ki <= qi) & (ki > qi - w),
+                             None, None, s, s, device=x["q"].device)
+    flex = torch.compile(flex_attention, dynamic=False)
+    return (lambda: flex(x["q"], x["k"], x["v"], block_mask=mask,
+                         enable_gqa=True),
+            "flex_attention (compiled, causal + window block mask)")
 
 
 def _flash_bound(p: dict, elem: int) -> tuple:
@@ -121,8 +136,9 @@ def _decode_library(x: dict, p: dict):
     lo, hi = _decode_rows(p)
     k = x["k"][:, lo:hi].transpose(1, 2)
     v = x["v"][:, lo:hi].transpose(1, 2)
-    return lambda: F.scaled_dot_product_attention(
-        x["q"][:, :, None], k, v, enable_gqa=True)[:, :, 0]
+    return (lambda: F.scaled_dot_product_attention(
+        x["q"][:, :, None], k, v, enable_gqa=True)[:, :, 0],
+        "scaled_dot_product_attention(enable_gqa) on the valid slice")
 
 
 def _decode_bound(p: dict, elem: int) -> tuple:
@@ -170,10 +186,10 @@ class MlOp:
     its arguments in call order (``rn`` draws seeded normals on ``dev``);
     ``kwargs(p)`` its keywords; ``plain`` names its plain version in
     ``repro_torch.kernels.ref``; ``library(x, p)`` gives one PyTorch call
-    of the same function as a yardstick (the port never calls it) or
-    None where there is none; ``bound(p, elem)`` gives (bytes,
-    operations, rate) of the least work; ``reps`` is how many kernel
-    calls one timing averages."""
+    of the same function as a yardstick (the port never calls it) and
+    its name, or None where there is none; ``bound(p, elem)`` gives
+    (bytes, operations, rate) of the least work; ``reps`` is how many
+    kernel calls one timing averages."""
     source: str
     replaces: str
     plain: str
@@ -254,7 +270,45 @@ def sweep_bound(fp: torch.Tensor, plan) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def phase_card_and_build() -> str:
+#: SASS instructions that show each design reached the card: wgmma
+#: (HGMMA), TMA tile loads (UTMALDG), cp.async (LDGSTS), mma.sync (HMMA)
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
+
+
+def cuobjdump_path() -> str:
+    """The toolkit's cuobjdump, else the one Triton's package carries."""
+    import importlib.util
+    import os
+    import shutil
+
+    cands = [Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+             / "cuobjdump"]
+    found = shutil.which("cuobjdump")
+    if found:
+        cands.append(Path(found))
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        cands.append(Path(spec.origin).parent / "backends" / "nvidia"
+                     / "bin" / "cuobjdump")
+    for c in cands:
+        if c.exists():
+            return str(c)
+    fail("no cuobjdump (CUDA toolkit or triton/backends/nvidia/bin)")
+
+
+def sass_counts(lib: Path, cuobjdump: str) -> dict:
+    import re
+
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
+
+
+def phase_card_and_build() -> tuple:
+    """The card's name and power limit; every library built; per library
+    the most registers, the spilled bytes and the entries whose wgmma
+    ptxas serialized (None for a library that was built before this
+    run) and its SASS counts."""
     from repro_torch.kernels import _build
 
     smi = subprocess.run(
@@ -265,18 +319,30 @@ def phase_card_and_build() -> str:
     t = time.perf_counter()
     logs = _build.build_all()
     secs = time.perf_counter() - t
-    parts = []
+    cuobjdump = cuobjdump_path()
+    facts = {}
     for kernel, log in logs.items():
         regs = [int(ln.split("Used ")[1].split()[0])
                 for ln in log.splitlines() if "registers" in ln]
         spills = sum(int(ln.split("bytes spill stores")[0].split()[-1])
                      for ln in log.splitlines() if "spill stores" in ln)
-        parts.append(f"{kernel} {len(regs)} entries, at most "
-                     f"{max(regs, default=0)} registers, {spills} B spilled"
-                     if log else f"{kernel} cached")
-    print(f"build: {secs:.3f} s for {len(logs)} kernels in parallel "
-          f"(ptxas: {'; '.join(parts)})", flush=True)
-    return smi
+        facts[kernel] = {
+            "registers": max(regs, default=0) if log else None,
+            "spill_bytes": spills if log else None,
+            # ptxas C7512: wgmma waited at once, short of registers
+            "wgmma_serialized": log.count("C7512") if log else None,
+            "sass": sass_counts(_build.library_path(kernel), cuobjdump)}
+    print(f"build: {secs:.3f} s for {len(logs)} kernels in parallel",
+          flush=True)
+    for kernel, f in facts.items():
+        ptxas = (f"at most {f['registers']} registers, {f['spill_bytes']} B "
+                 f"spilled, {f['wgmma_serialized']} entries with serialized "
+                 "wgmma" if f["registers"] is not None else
+                 "built before this run")
+        print(f"library {kernel}: ptxas {ptxas}; SASS "
+              + ", ".join(f"{k} {v}" for k, v in f["sass"].items()),
+              flush=True)
+    return smi, facts
 
 
 def check_pair(plan, fp, link, t0, what: str, timing: dict = None) -> float:
@@ -482,6 +548,7 @@ def phase_ml_kernels(dev, inputs: list, outs: list) -> dict:
         plain_ms = cuda_ms(lambda: ml_call(kernel, x, p, plain=True), 1,
                            warm=False)
         lib = op.library(x, p)
+        lib, library_call = lib if lib is not None else (None, None)
         library_ms = cuda_ms(lib, 10) if lib is not None else None
         lib_err = (compare((lib(),), got, torch.bfloat16)[0]
                    if lib is not None else None)
@@ -489,12 +556,13 @@ def phase_ml_kernels(dev, inputs: list, outs: list) -> dict:
                           "max_abs_err": err, "atol": atol, "ms": ms,
                           "plain_ms": plain_ms, "library_ms": library_ms,
                           "library_max_abs_err": lib_err,
+                          "library_call": library_call,
                           **ml_bound(kernel, p, 2)}
         r = results[label]
         print(f"{kernel} {label}: max abs err {err} vs plain (atol {atol}); "
               f"kernel {ms} ms, plain {plain_ms} ms, library {library_ms} "
-              f"ms, bound {r['bound_ms']} ms by {r['bound_by']} "
-              f"({r['bytes']} B, {r['ops']} ops)", flush=True)
+              f"ms ({library_call}), bound {r['bound_ms']} ms by "
+              f"{r['bound_by']} ({r['bytes']} B, {r['ops']} ops)", flush=True)
         inputs[i] = outs[i] = None
         del x, got
         torch.cuda.empty_cache()
@@ -520,7 +588,7 @@ def ml_record(launches: dict, results: dict) -> list:
     """One entry per kernel: the numbers of its first path shape, every
     other shape under ``more_shapes``, the float32 checks' errors."""
     keys = ("shape", "max_abs_err", "atol", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "bytes", "ops")
+            "bound_by", "library_ms", "library_call", "bytes", "ops")
     out = []
     for kernel, op in ML_OPS.items():
         rows = [r for r in results.values()
@@ -687,7 +755,7 @@ def main() -> None:
         fail("CUDA is not available: chip_smoke.py needs an NVIDIA GPU")
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
-    smi = phase_card_and_build()
+    smi, libs = phase_card_and_build()
     err, timings = phase_kernel_vs_plain(dev)
     ml_launches, inputs, outs = phase_ml_path(dev)
     ml = phase_ml_kernels(dev, inputs, outs)
@@ -707,6 +775,8 @@ def main() -> None:
         "library_ms": None, "bit_equal": err == 0.0,
         "shape": {"rows": len(SEEDS) * M, "n": N_MAIN},
         "bytes": main_t["bytes"]}] + ml_record(ml_launches, ml)}
+    for entry in record["kernels"]:
+        entry.update(libs[entry["name"]])
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(

@@ -22,6 +22,9 @@ SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: after the source: the driver API, for the TMA descriptors of the
+#: tensor-core kernels (``cuTensorMapEncodeTiled``)
+LINK_FLAGS = ("-lcuda",)
 
 #: every kernel library, one per ``csrc/<name>.cu``
 KERNELS = ("tree_sweep", "flash_attention", "decode_attention",
@@ -42,7 +45,7 @@ def nvcc_path() -> str:
 
 
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(SRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -71,7 +74,7 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         procs[name] = (tmp, out, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-             str(SRC_DIR / f"{name}.cu")],
+             str(SRC_DIR / f"{name}.cu"), *LINK_FLAGS],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs = {name: "" for name in names}
     failed = []

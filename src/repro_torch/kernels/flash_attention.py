@@ -3,9 +3,15 @@ of the CUDA kernel ``csrc/flash_attention.cu`` (port of
 ``repro.kernels.flash_attention.flash_attention_pallas``).
 
 Plain version: :func:`repro_torch.kernels.ref.mha_reference`.  The work
-is bound by operations; this first kernel runs its products on the CUDA
-cores in float32 and visits only the KV tiles each query tile can see
-(the source note says more).
+is bound by operations.  bfloat16 inputs run a warp-specialised
+tensor-core kernel: TMA fills a ring of K and V tiles, two consumer
+warpgroups run S = Q.K^T and O += P.V as ``wgmma``, with P carried into
+the second product as two bf16 terms (hi + lo, about 16 bits; the plain
+version keeps it in float32, and one bf16 rounding alone errs past the
+bf16 tolerance on rows that see few keys).  float32 inputs run the
+first port's CUDA-core kernel: dispatch by dtype, since a float32 check
+at 1e-4 cannot go through bf16 tensor cores.  Both visit only the KV
+tiles each query tile can see (the source note says more).
 """
 from __future__ import annotations
 
@@ -29,9 +35,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``q``: (B, H, S, hd); ``k``, ``v``: (B, Hkv, S, hd); one dtype
     (float32 or bfloat16), contiguous CUDA tensors, ``hd`` in
     :data:`HEAD_DIMS`, ``H`` a multiple of ``Hkv``.  Returns (B, H, S, hd)
-    in q's dtype.  Raises on any other input and on a failed build or
-    launch; ``flash_attention_cuda.launches`` counts the calls that
-    launched the kernel."""
+    in q's dtype.  bfloat16 launches the tensor-core kernel, float32 the
+    CUDA-core one (by dtype; neither stands in for the other).  Raises on
+    any other input and on a failed build or launch;
+    ``flash_attention_cuda.launches`` counts the calls that launched the
+    kernel."""
     fn = "flash_attention_cuda"
     dev = _cuda.require_cuda(fn, q)
     if q.dim() != 4 or k.dim() != 4:
@@ -49,7 +57,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hkv < 1 or h % hkv:
         raise ValueError(f"{fn}: {h} query heads are not a multiple of "
                          f"{hkv} KV heads")
-    if b > 65535 or h > 65535 or s >= 2 ** 31 - 64:
+    if b > 65535 or h > 65535 or s >= 2 ** 31 - 64 or (
+            q.dtype == torch.bfloat16 and s > 65535 * 128):
         raise ValueError(f"{fn}: shape {tuple(q.shape)} is past the "
                          "kernel's grid")
     if window is not None and window < 1:

@@ -88,6 +88,55 @@ def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
     return out.to(q.dtype)
 
 
+def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor,
+                           length: Union[int, torch.Tensor], *,
+                           nsplit: int, window: Optional[int] = None,
+                           tile: int = 64) -> torch.Tensor:
+    """The split-and-combine arithmetic of the bf16 decode kernel
+    (flash-decoding), in plain float32: the valid range [lo, hi) is cut
+    into ``nsplit`` tile-aligned parts, each part gives a partial
+    (m, l, acc) over its rows, and the partials are merged by the
+    log-sum-exp rule.  An empty part gives m = NEG_INF, l = 0, acc = 0;
+    with no valid row at all the output is 0 (l is clamped at 1e-30, as
+    the Pallas kernel clamps it), where the oracle's softmax over
+    NEG_INF logits would average every row."""
+    b, h, hd = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    group = h // hkv
+    scale = 1.0 / math.sqrt(hd)
+    length = int(length)
+    hi = min(length, s)
+    lo = 0 if window is None else max(0, length - window)
+    n = max(0, hi - lo)
+    per_split = -(-n // nsplit)
+    chunk = -(-per_split // tile) * tile
+    qg = q.float().reshape(b, hkv, group, hd)
+    ms, ls, accs = [], [], []
+    for j in range(nsplit):
+        start = lo + j * chunk
+        end = min(hi, start + chunk)
+        if end <= start:
+            ms.append(torch.full((b, hkv, group), NEG_INF, device=q.device))
+            ls.append(torch.zeros((b, hkv, group), device=q.device))
+            accs.append(torch.zeros((b, hkv, group, hd), device=q.device))
+            continue
+        logits = torch.einsum("bgrd,bsgd->bgrs", qg,
+                              k_cache[:, start:end].float()) * scale
+        m = logits.amax(dim=-1)
+        p = torch.exp(logits - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bgrs,bsgd->bgrd", p,
+                                 v_cache[:, start:end].float()))
+    m_all = torch.stack(ms).amax(dim=0)
+    w = [torch.exp(m - m_all) for m in ms]
+    l_all = sum(l * wj for l, wj in zip(ls, w))
+    acc = sum(a * wj[..., None] for a, wj in zip(accs, w))
+    out = acc / torch.clamp(l_all, min=1e-30)[..., None]
+    return out.reshape(b, h, hd).to(q.dtype)
+
+
 def wkv6_reference(r, k, v, logw, u, s0):
     """Step-by-step WKV-6 recurrence (the gold oracle).
     r/k/v/logw: (B, T, H, hd); u: (H, hd); s0: (B, H, hd, hd) fp32,

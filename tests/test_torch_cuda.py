@@ -12,7 +12,8 @@ import torch
 from repro_torch.core import engine as port_engine
 from repro_torch.core.planner import level_csr
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                  split_count)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.rglru_scan import rglru_scan_cuda
 from repro_torch.kernels.tree_sweep import (fwd_at_parent, level_sweep,
@@ -152,6 +153,95 @@ def test_flash_attention_kernel_not_causal(dev, window):
     got = flash_attention_cuda(q, k, v, causal=False, window=window)
     want = ref.mha_reference(q, k, v, causal=False, window=window)
     torch.testing.assert_close(got, want, **tol(torch.float32))
+
+
+@pytest.mark.parametrize("window", [None, 50])
+def test_flash_attention_bf16_not_causal(dev, window):
+    q = randn(dev, torch.bfloat16, 1, 4, 300, 64, seed=50)
+    k = randn(dev, torch.bfloat16, 1, 2, 300, 64, seed=51)
+    v = randn(dev, torch.bfloat16, 1, 2, 300, 64, seed=52)
+    got = flash_attention_cuda(q, k, v, causal=False, window=window)
+    want = ref.mha_reference(q, k, v, causal=False, window=window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("s", [1000, 1500, 2100])
+@pytest.mark.parametrize("hd", [128, 256])
+@pytest.mark.parametrize("window", [None, 100, 1])
+def test_flash_attention_bf16_many_tiles(dev, s, hd, window):
+    """Many KV tiles (128 keys, 64 at hd 256) with a ragged last tile; a
+    window of 100 starts mid-tile, a window of 1 keeps only the
+    diagonal."""
+    q = randn(dev, torch.bfloat16, 1, 4, s, hd, seed=53)
+    k = randn(dev, torch.bfloat16, 1, 2, s, hd, seed=54)
+    v = randn(dev, torch.bfloat16, 1, 2, s, hd, seed=55)
+    got = flash_attention_cuda(q, k, v, causal=True, window=window)
+    want = ref.mha_reference(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **tol(torch.bfloat16))
+
+
+def test_flash_attention_bf16_rows_with_few_keys(dev):
+    """The smoke's bf16 tolerance (rtol 2e-2, atol 2e-2 x the plain
+    output's RMS) over a long sequence, whose first rows see only a few
+    keys: there a P rounded once to bf16 errs by up to 2^-9 |v|, far
+    past the atol, so the kernel carries P as bf16 hi + lo."""
+    q = randn(dev, torch.bfloat16, 1, 4, 4096, 128, seed=62)
+    k = randn(dev, torch.bfloat16, 1, 2, 4096, 128, seed=63)
+    v = randn(dev, torch.bfloat16, 1, 2, 4096, 128, seed=64)
+    got = flash_attention_cuda(q, k, v).float()
+    want = ref.mha_reference(q, k, v).float()
+    atol = 2e-2 * float(want.square().mean().sqrt())
+    torch.testing.assert_close(got, want, rtol=2e-2, atol=atol)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16, 64])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_decode_attention_bf16_groups(dev, g, hd):
+    b, hkv, s = 2, 2, 300
+    q = randn(dev, torch.bfloat16, b, hkv * g, hd, seed=56)
+    kc = randn(dev, torch.bfloat16, b, s, hkv, hd, seed=57)
+    vc = randn(dev, torch.bfloat16, b, s, hkv, hd, seed=58)
+    n = torch.tensor(257, device=dev)
+    got = decode_attention_cuda(q, kc, vc, n)
+    want = ref.decode_attention_reference(q, kc, vc, 257)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("length,window", [
+    (1024, None),    # every split exactly 64 rows: lengths on boundaries
+    (128, None),     # two splits of 64, the rest empty
+    (1025, None),    # one row past a boundary
+    (3000, None),    # past the cache's end: every row valid
+    (2048, 50),      # the window inside one split
+    (1000, 100),     # a window across a split boundary
+    (0, None),       # no valid row: the output is 0
+])
+@pytest.mark.parametrize("on_device", [False, True])
+def test_decode_attention_bf16_split_edges(dev, length, window, on_device):
+    b, h, hkv, s, hd = 1, 16, 1, 2048, 256
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert split_count(b, hkv, h // hkv, s, sms) > 1
+    q = randn(dev, torch.bfloat16, b, h, hd, seed=59)
+    kc = randn(dev, torch.bfloat16, b, s, hkv, hd, seed=60)
+    vc = randn(dev, torch.bfloat16, b, s, hkv, hd, seed=61)
+    n = torch.tensor(length, device=dev) if on_device else length
+    got = decode_attention_cuda(q, kc, vc, n, window=window)
+    torch.cuda.synchronize()
+    if length == 0:
+        assert torch.equal(got, torch.zeros_like(got))
+        return
+    want = ref.decode_attention_reference(q, kc, vc, length, window=window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **tol(torch.bfloat16))
+    split = ref.decode_attention_split(q, kc, vc, length, window=window,
+                                       nsplit=split_count(b, hkv, h // hkv,
+                                                          s, sms))
+    torch.testing.assert_close(got.float(), split.float(),
+                               **tol(torch.bfloat16))
 
 
 @pytest.mark.parametrize("b,h,hkv,s,hd,length", [

@@ -220,3 +220,68 @@ def test_every_kernel_library_has_its_source():
     assert sorted(_build.KERNELS) == sources
     for name in _build.KERNELS:
         assert _build.library_path(name).name.startswith(f"lib{name}-")
+
+
+SPLITS = [(2, 8, 2, 512, 64, 300, None),
+          (1, 16, 1, 384, 128, 384, 100),     # a window inside one split
+          (2, 4, 4, 256, 32, 200, None),
+          (1, 4, 2, 128, 32, 64, None),       # a length on a split's edge
+          (1, 4, 2, 128, 32, 200, None)]      # a length past the cache
+
+
+@pytest.mark.parametrize("shape", SPLITS)
+@pytest.mark.parametrize("nsplit", [1, 2, 3, 8])
+def test_decode_split_combine_matches_oracles(shape, nsplit):
+    """The bf16 decode kernel's arithmetic (partials per split of the
+    valid range, merged by log-sum-exp) equals the one-pass oracles in
+    float32; 8 splits of these lengths leave some splits empty, and a
+    length past the cache's end makes every row valid."""
+    b, h, hkv, s, hd, length, window = shape
+    rng = np.random.default_rng(13)
+    (jq, q), (jk, kc), (jv, vc) = (
+        both(rng.standard_normal(sh), "float32")
+        for sh in ((b, h, hd), (b, s, hkv, hd), (b, s, hkv, hd)))
+    out = ref.decode_attention_split(q, kc, vc, length, nsplit=nsplit,
+                                     window=window)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    golds = [ref.decode_attention_reference(q, kc, vc, length,
+                                            window=window),
+             jref.decode_attention_reference(jq, jk, jv, jnp.int32(length),
+                                             window=window)]
+    check(out, golds, **tol("float32"))
+
+
+def test_decode_split_with_no_valid_row_gives_zero_like_pallas():
+    """length = 0: every split is empty and the output is 0, as the
+    Pallas kernel's clamped l gives (the oracle's softmax over NEG_INF
+    logits would average the cache instead)."""
+    rng = np.random.default_rng(15)
+    shapes = ((1, 4, 32), (1, 64, 2, 32), (1, 64, 2, 32))
+    (jq, q), (jk, kc), (jv, vc) = (both(rng.standard_normal(sh), "float32")
+                                   for sh in shapes)
+    out = ref.decode_attention_split(q, kc, vc, 0, nsplit=3)
+    assert torch.equal(out, torch.zeros_like(q))
+    gold = jops.decode_attention(jq, jk, jv, jnp.int32(0),
+                                 impl="pallas_interpret")
+    check(out, [gold], **tol("float32"))
+
+
+@pytest.mark.parametrize("b,hkv,g,s,want", [
+    (128, 8, 2, 32768, 2),      # qwen3-0.6b decode_32k: 2,048 blocks
+    (128, 1, 16, 2048, 8),      # recurrentgemma-9b ring cache: 1,024
+    (1, 1, 2, 100, 1),          # shorter than two tiles: no split
+    (1, 1, 16, 2048, 16),       # one row: as many splits as 128-row parts
+    (2, 2, 64, 300, 3),         # 64 heads: 4 blocks of 16 per KV head
+])
+def test_decode_split_count(b, hkv, g, s, want):
+    """The bf16 decode wrapper's split count: enough blocks to cover the
+    132 SMs eight times, splits of at least two 64-row tiles, trimmed to
+    the tile-aligned splits of S that hold rows: at length S the kernel's
+    splits (ceil(S / n) rounded up to whole tiles) are all non-empty."""
+    from repro_torch.kernels.decode_attention import TILE, split_count
+
+    n = split_count(b, hkv, g, s, 132)
+    assert n == want
+    per_split = -(-s // n)
+    chunk = -(-per_split // TILE) * TILE
+    assert (n - 1) * chunk < s <= n * chunk
