@@ -20,7 +20,8 @@
 //    positions form one range [lo, hi), computed on the device from
 //    `length` (a pointer to a device int64 when the caller passed a CUDA
 //    tensor, so the host never waits for it); each block takes its own
-//    tile-aligned part of it, and reads no masked row at all, where the
+//    part of it, a multiple of `align` rows (the wrapper's SPLIT_ALIGN,
+//    a multiple of kTile), and reads no masked row at all, where the
 //    Pallas kernel streams the whole cache against an int8 mask.  K and
 //    V tiles of 64 rows stay in bf16 in a ring of 3-4 shared-memory
 //    stages filled by 16-byte cp.async.cg (tens of KB in flight per SM
@@ -317,7 +318,7 @@ decode_split_kernel(float* __restrict__ part, const bf16* __restrict__ q,
                     const bf16* __restrict__ kc, const bf16* __restrict__ vc,
                     const long long* __restrict__ length_dev,
                     long long length_host, int B, int S, int Hkv, int G,
-                    int window, float scale_log2) {
+                    int align, int window, float scale_log2) {
   using C = Cfg<HD>;
   constexpr int P = C::kPitch;
   constexpr int ST = C::kStages;
@@ -340,14 +341,14 @@ decode_split_kernel(float* __restrict__ part, const bf16* __restrict__ q,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  // this split's part of the valid range, tile-aligned from lo
+  // this split's part of the valid range, `align`-aligned from lo
   const long long length = length_dev ? *length_dev : length_host;
   const long long hi = length < S ? length : (long long)S;
   long long lo = 0;
   if (window >= 0 && length - window > 0) lo = length - window;
   const long long n = hi > lo ? hi - lo : 0;
   long long chunk = (n + nsplit - 1) / nsplit;
-  chunk = (chunk + kTile - 1) / kTile * kTile;
+  chunk = (chunk + align - 1) / align * align;
   const long long start = lo + split * chunk;
   const long long end = start + chunk < hi ? start + chunk : hi;
   const int n_tiles = end > start ? (int)((end - start + kTile - 1) / kTile)
@@ -551,7 +552,7 @@ template <int HD>
 int launch(void* out, void* part, const void* q, const void* kc,
            const void* vc, const long long* length_dev,
            long long length_host, int B, int S, int Hkv, int G, int nsplit,
-           int window, float scale, cudaStream_t stream) {
+           int align, int window, float scale, cudaStream_t stream) {
   using C = Cfg<HD>;
   auto split = decode_split_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -561,7 +562,7 @@ int launch(void* out, void* part, const void* q, const void* kc,
   split<<<dim3(nsplit, Hkv * ngc, B), kThreads, C::kSmem, stream>>>(
       static_cast<float*>(part), static_cast<const bf16*>(q),
       static_cast<const bf16*>(kc), static_cast<const bf16*>(vc),
-      length_dev, length_host, B, S, Hkv, G, window,
+      length_dev, length_host, B, S, Hkv, G, align, window,
       scale * 1.4426950408889634f);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -574,18 +575,19 @@ int launch(void* out, void* part, const void* q, const void* kc,
 int dispatch(int hd, void* out, void* part, const void* q, const void* kc,
              const void* vc, const long long* length_dev,
              long long length_host, int B, int S, int Hkv, int G, int nsplit,
-             int window, float scale, cudaStream_t s) {
+             int align, int window, float scale, cudaStream_t s) {
+  if (align < kTile || align % kTile) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 32: return launch<32>(out, part, q, kc, vc, length_dev, length_host,
-                               B, S, Hkv, G, nsplit, window, scale, s);
+                               B, S, Hkv, G, nsplit, align, window, scale, s);
     case 64: return launch<64>(out, part, q, kc, vc, length_dev, length_host,
-                               B, S, Hkv, G, nsplit, window, scale, s);
+                               B, S, Hkv, G, nsplit, align, window, scale, s);
     case 128: return launch<128>(out, part, q, kc, vc, length_dev,
-                                 length_host, B, S, Hkv, G, nsplit, window,
-                                 scale, s);
+                                 length_host, B, S, Hkv, G, nsplit, align,
+                                 window, scale, s);
     case 256: return launch<256>(out, part, q, kc, vc, length_dev,
-                                 length_host, B, S, Hkv, G, nsplit, window,
-                                 scale, s);
+                                 length_host, B, S, Hkv, G, nsplit, align,
+                                 window, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -600,15 +602,17 @@ extern "C" {
 // `dtype`; hd in {32, 64, 128, 256}, G <= 64.  The valid length is
 // *length_dev when length_dev is not null, else length_host; window < 0
 // means none.  bfloat16 splits the valid range over `nsplit` blocks per
-// (b, KV head) and needs `part`, float32 scratch of
-// B * Hkv * nsplit * G * (hd + 2) elements; float32 ignores both.
+// (b, KV head), each a multiple of `align` rows (a multiple of the
+// kernel's 64-row tile), and needs `part`, float32 scratch of
+// B * Hkv * nsplit * G * (hd + 2) elements; float32 ignores the three.
 // Launches on `stream`; returns 0 or a CUDA error code.
 int repro_decode_attention(void* out, void* part, const void* q,
                            const void* k_cache, const void* v_cache,
                            const long long* length_dev,
                            long long length_host, int B, int S, int Hkv,
-                           int G, int hd, int nsplit, int window,
-                           float scale, int dtype, void* stream) {
+                           int G, int hd, int nsplit, int align,
+                           int window, float scale, int dtype,
+                           void* stream) {
   if (B <= 0 || Hkv <= 0 || G <= 0) return 0;
   if (B > 65535 || G > simt::kMaxGroup || nsplit < 1)
     return (int)cudaErrorInvalidValue;
@@ -619,7 +623,8 @@ int repro_decode_attention(void* out, void* part, const void* q,
                                  s);
   if (dtype == repro::kBF16)
     return tc::dispatch(hd, out, part, q, k_cache, v_cache, length_dev,
-                        length_host, B, S, Hkv, G, nsplit, window, scale, s);
+                        length_host, B, S, Hkv, G, nsplit, align, window,
+                        scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

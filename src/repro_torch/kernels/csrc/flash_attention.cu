@@ -453,7 +453,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == 0) {
     // producer: one thread issues every TMA load; a K (V) slot is
     // refilled as soon as both consumers are done with the K (V) tile
-    // in it
+    // in it.  Both setmaxnreg calls are kept for the register experiment
+    // of the note at the top; with ptxas 12.9 they change nothing.
     repro::setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
       repro::mbar_expect_tx(q_full, C::kQBytes);
@@ -487,7 +488,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   // consumers: warpgroup cw owns query rows q0 + 64 cw .. + 63.  Tile
   // i's S = Q . K^T runs on the tensor cores together with tile i - 1's
   // O += P . V, while the warpgroup computes tile i's softmax.
-  repro::setmaxnreg_inc<232>();
+  repro::setmaxnreg_inc<232>();         // no effect yet: see the note
   const int cw = wg - 1;
   const int t = threadIdx.x - 128 * wg;
   const int lane = t & 31;

@@ -27,10 +27,12 @@ HEAD_DIMS = (32, 64, 128, 256)
 MAX_GROUP = 64
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"repro_decode_attention": [
-    _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-    _I, _P]}
-#: cache rows per tile of the bf16 kernel (``csrc/decode_attention.cu``)
-TILE = 64
+    _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
+    ctypes.c_float, _I, _P]}
+#: cache rows a split of the bf16 kernel is a multiple of; the kernel
+#: takes it as an argument and refuses one that is not a multiple of its
+#: own tile (``kTile`` in ``csrc/decode_attention.cu``)
+SPLIT_ALIGN = 64
 #: query heads per block of the bf16 kernel (the mma's 16 rows)
 ROWS = 16
 
@@ -38,11 +40,11 @@ ROWS = 16
 def split_count(b: int, hkv: int, g: int, s: int, sms: int) -> int:
     """Blocks per (batch row, KV head, 16 query heads) for a cache of
     ``s`` rows: enough that the grid covers the ``sms`` SMs eight times,
-    no split shorter than two tiles, and the count trimmed to what
-    tile-aligned splits of ``s`` rows use."""
+    no split shorter than two :data:`SPLIT_ALIGN` parts, and the count
+    trimmed to what aligned splits of ``s`` rows use."""
     pairs = b * hkv * _cdiv(g, ROWS)
-    want = max(1, min(_cdiv(8 * sms, pairs), _cdiv(s, 2 * TILE)))
-    chunk = _cdiv(_cdiv(s, want), TILE) * TILE
+    want = max(1, min(_cdiv(8 * sms, pairs), _cdiv(s, 2 * SPLIT_ALIGN)))
+    chunk = _cdiv(_cdiv(s, want), SPLIT_ALIGN) * SPLIT_ALIGN
     return _cdiv(s, chunk)
 
 
@@ -117,7 +119,7 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
             out.data_ptr(), None if part is None else part.data_ptr(),
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             None if length_dev is None else length_dev.data_ptr(),
-            length_host, b, s, hkv, g, hd, nsplit,
+            length_host, b, s, hkv, g, hd, nsplit, SPLIT_ALIGN,
             win, 1.0 / math.sqrt(hd),
             _cuda.DTYPE_CODES[q.dtype], _cuda.stream(dev))
     _cuda.raise_on(err, lib, fn)

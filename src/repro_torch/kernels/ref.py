@@ -22,6 +22,8 @@ from typing import Optional, Union
 
 import torch
 
+from .decode_attention import SPLIT_ALIGN
+
 NEG_INF = -1e30
 #: most float32 attention scores one piece of a twin materialises (1 GiB)
 PIECE_ELEMS = 1 << 28
@@ -92,10 +94,11 @@ def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor,
                            length: Union[int, torch.Tensor], *,
                            nsplit: int, window: Optional[int] = None,
-                           tile: int = 64) -> torch.Tensor:
+                           align: int = SPLIT_ALIGN) -> torch.Tensor:
     """The split-and-combine arithmetic of the bf16 decode kernel
     (flash-decoding), in plain float32: the valid range [lo, hi) is cut
-    into ``nsplit`` tile-aligned parts, each part gives a partial
+    into ``nsplit`` parts, each a multiple of ``align`` rows (the
+    kernel's cut, from its wrapper's constant), each part gives a partial
     (m, l, acc) over its rows, and the partials are merged by the
     log-sum-exp rule.  An empty part gives m = NEG_INF, l = 0, acc = 0;
     with no valid row at all the output is 0 (l is clamped at 1e-30, as
@@ -110,7 +113,7 @@ def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
     lo = 0 if window is None else max(0, length - window)
     n = max(0, hi - lo)
     per_split = -(-n // nsplit)
-    chunk = -(-per_split // tile) * tile
+    chunk = -(-per_split // align) * align
     qg = q.float().reshape(b, hkv, group, hd)
     ms, ls, accs = [], [], []
     for j in range(nsplit):

@@ -12,7 +12,8 @@ import torch
 from repro_torch.core import engine as port_engine
 from repro_torch.core.planner import level_csr
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+from repro_torch.kernels.decode_attention import (SPLIT_ALIGN,
+                                                  decode_attention_cuda,
                                                   split_count)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.rglru_scan import rglru_scan_cuda
@@ -119,6 +120,16 @@ def tol(dtype, loose=False):
     return dict(rtol=t, atol=t)
 
 
+def assert_close_smoke(got, want):
+    """chip_smoke.py's bf16 limit: rtol 2e-2 and an atol of 2e-2 x the
+    plain output's RMS.  A fixed atol of 2e-2 is about the size of an
+    attention output that averages many rows, so it cannot see a row
+    dropped or a zero row given weight."""
+    want = want.float()
+    atol = 2e-2 * float(want.square().mean().sqrt())
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=atol)
+
+
 def randn(dev, dtype, *shape, seed, scale=1.0):
     x = np.random.default_rng(seed).standard_normal(shape) * scale
     return torch.from_numpy(x.astype(np.float32)).to(dev, dtype)
@@ -162,25 +173,23 @@ def test_flash_attention_bf16_not_causal(dev, window):
     v = randn(dev, torch.bfloat16, 1, 2, 300, 64, seed=52)
     got = flash_attention_cuda(q, k, v, causal=False, window=window)
     want = ref.mha_reference(q, k, v, causal=False, window=window)
-    torch.testing.assert_close(got.float(), want.float(),
-                               **tol(torch.bfloat16))
+    assert_close_smoke(got, want)
 
 
 @pytest.mark.parametrize("s", [1000, 1500, 2100])
 @pytest.mark.parametrize("hd", [128, 256])
 @pytest.mark.parametrize("window", [None, 100, 1])
 def test_flash_attention_bf16_many_tiles(dev, s, hd, window):
-    """Many KV tiles (128 keys, 64 at hd 256) with a ragged last tile; a
-    window of 100 starts mid-tile, a window of 1 keeps only the
-    diagonal."""
+    """Many KV tiles (64 keys, 32 at hd 256) and query tiles (128 rows)
+    with ragged last tiles; a window of 100 starts mid-tile, a window of
+    1 keeps only the diagonal."""
     q = randn(dev, torch.bfloat16, 1, 4, s, hd, seed=53)
     k = randn(dev, torch.bfloat16, 1, 2, s, hd, seed=54)
     v = randn(dev, torch.bfloat16, 1, 2, s, hd, seed=55)
     got = flash_attention_cuda(q, k, v, causal=True, window=window)
     want = ref.mha_reference(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want.float(),
-                               **tol(torch.bfloat16))
+    assert_close_smoke(got, want)
 
 
 def test_flash_attention_bf16_rows_with_few_keys(dev):
@@ -191,10 +200,8 @@ def test_flash_attention_bf16_rows_with_few_keys(dev):
     q = randn(dev, torch.bfloat16, 1, 4, 4096, 128, seed=62)
     k = randn(dev, torch.bfloat16, 1, 2, 4096, 128, seed=63)
     v = randn(dev, torch.bfloat16, 1, 2, 4096, 128, seed=64)
-    got = flash_attention_cuda(q, k, v).float()
-    want = ref.mha_reference(q, k, v).float()
-    atol = 2e-2 * float(want.square().mean().sqrt())
-    torch.testing.assert_close(got, want, rtol=2e-2, atol=atol)
+    assert_close_smoke(flash_attention_cuda(q, k, v),
+                       ref.mha_reference(q, k, v))
 
 
 @pytest.mark.parametrize("g", [1, 2, 4, 8, 16, 64])
@@ -206,9 +213,7 @@ def test_decode_attention_bf16_groups(dev, g, hd):
     vc = randn(dev, torch.bfloat16, b, s, hkv, hd, seed=58)
     n = torch.tensor(257, device=dev)
     got = decode_attention_cuda(q, kc, vc, n)
-    want = ref.decode_attention_reference(q, kc, vc, 257)
-    torch.testing.assert_close(got.float(), want.float(),
-                               **tol(torch.bfloat16))
+    assert_close_smoke(got, ref.decode_attention_reference(q, kc, vc, 257))
 
 
 @pytest.mark.parametrize("length,window", [
@@ -234,14 +239,36 @@ def test_decode_attention_bf16_split_edges(dev, length, window, on_device):
     if length == 0:
         assert torch.equal(got, torch.zeros_like(got))
         return
-    want = ref.decode_attention_reference(q, kc, vc, length, window=window)
-    torch.testing.assert_close(got.float(), want.float(),
-                               **tol(torch.bfloat16))
-    split = ref.decode_attention_split(q, kc, vc, length, window=window,
-                                       nsplit=split_count(b, hkv, h // hkv,
-                                                          s, sms))
-    torch.testing.assert_close(got.float(), split.float(),
-                               **tol(torch.bfloat16))
+    assert_close_smoke(got, ref.decode_attention_reference(
+        q, kc, vc, length, window=window))
+    assert_close_smoke(got, ref.decode_attention_split(
+        q, kc, vc, length, window=window,
+        nsplit=split_count(b, hkv, h // hkv, s, sms)))
+
+
+@pytest.mark.parametrize("length,window", [
+    (32001, None),   # one row in the last split
+    (32255, None),   # the last split one row short of full
+    (32001, 1000),   # a window whose last split is ragged
+])
+def test_decode_attention_bf16_ragged_last_split(dev, length, window):
+    """qwen3-0.6b's decode widths (G = 2, hd 128, S = 32,768) at one
+    batch row, with lengths that leave the last split of the valid range
+    part-filled, where the smoke's length of 32,000 splits evenly."""
+    b, h, hkv, s, hd = 1, 16, 8, 32768, 128
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nsplit = split_count(b, hkv, h // hkv, s, sms)
+    n = length if window is None else window
+    per_split = -(-n // nsplit)
+    chunk = -(-per_split // SPLIT_ALIGN) * SPLIT_ALIGN
+    assert n % chunk and n > chunk
+    q = randn(dev, torch.bfloat16, b, h, hd, seed=65)
+    kc = randn(dev, torch.bfloat16, b, s, hkv, hd, seed=66)
+    vc = randn(dev, torch.bfloat16, b, s, hkv, hd, seed=67)
+    got = decode_attention_cuda(q, kc, vc, torch.tensor(length, device=dev),
+                                window=window)
+    assert_close_smoke(got, ref.decode_attention_reference(
+        q, kc, vc, length, window=window))
 
 
 @pytest.mark.parametrize("b,h,hkv,s,hd,length", [

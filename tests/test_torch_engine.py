@@ -85,8 +85,8 @@ def test_later_slices_raise(option):
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every module of the port, and chip_smoke.py, imports with JAX made
-    unimportable, and leaves no ``repro`` module loaded."""
+    """Every module of the port, chip_smoke.py and p_lo_cost.py import with
+    JAX made unimportable, and leave no ``repro`` module loaded."""
     code = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
@@ -96,7 +96,7 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke
+import chip_smoke, p_lo_cost
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m in ("repro", "jax") or m.startswith(("repro.", "jax."))))
 assert not bad, bad

@@ -275,13 +275,14 @@ def test_decode_split_with_no_valid_row_gives_zero_like_pallas():
 ])
 def test_decode_split_count(b, hkv, g, s, want):
     """The bf16 decode wrapper's split count: enough blocks to cover the
-    132 SMs eight times, splits of at least two 64-row tiles, trimmed to
-    the tile-aligned splits of S that hold rows: at length S the kernel's
-    splits (ceil(S / n) rounded up to whole tiles) are all non-empty."""
-    from repro_torch.kernels.decode_attention import TILE, split_count
+    132 SMs eight times, splits of at least two 64-row parts, trimmed to
+    the aligned splits of S that hold rows: at length S the kernel's
+    splits (ceil(S / n) rounded up to SPLIT_ALIGN rows) are all
+    non-empty."""
+    from repro_torch.kernels.decode_attention import SPLIT_ALIGN, split_count
 
     n = split_count(b, hkv, g, s, 132)
     assert n == want
     per_split = -(-s // n)
-    chunk = -(-per_split // TILE) * TILE
+    chunk = -(-per_split // SPLIT_ALIGN) * SPLIT_ALIGN
     assert (n - 1) * chunk < s <= n * chunk
